@@ -1,7 +1,7 @@
 """Generate a procedural background-compositing pool DISJOINT from the
 5 real demo frames.
 
-Round-3 lesson (docs/BENCH_NOTES.md "r3 demo regression"): compositing
+Round-3 lesson (the r3 demo regression): compositing
 synthetic objects over the SAME real frames later used for the demo
 teaches the net those exact pixels as background, killing demo
 detections. The reference composites a large pool of real images

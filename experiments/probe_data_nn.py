@@ -72,7 +72,7 @@ def main():
     ap.add_argument("--paint_version", type=int, default=3)
     ap.add_argument(
         "--quantize", action="store_true",
-        help="round-trip each crop through the uint8 tunnel feed "
+        help="round-trip each crop through the uint8 compact feed "
         "(pipeline.compact_feed semantics) before NN matching — "
         "isolates whether uint8 quantization costs rotation signal",
     )

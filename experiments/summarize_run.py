@@ -2,7 +2,7 @@
 
 Reads <out_dir>/metrics.jsonl (train loss curve) and any
 output/eval_syn_<iter>/eval.json produced by the phase-B runbook, and
-prints a markdown table + one JSON line for BENCH_NOTES / artifacts.
+prints a markdown table + one JSON line for the artifacts.
 
   python experiments/summarize_run.py output/lov_syn_r2
 """

@@ -3,7 +3,7 @@
 // The reference keeps its training-data generation native (the
 // lib/synthesize C++/OpenGL renderer feeding the data layer,
 // synthesize.cpp render path; vertex-target assembly in the data
-// layer). TPU hosts have no GL, so the rasterization core here is a
+// layer). Training hosts need no GL stack: the rasterization core here is a
 // z-buffered point splatter — the inner loop of
 // data/synthetic.SyntheticSceneGenerator — plus the per-pixel
 // vertex-target writer (ref semantics:

@@ -1,10 +1,10 @@
-"""posecnn_tpu — a TPU-native 6D object pose estimation framework.
+"""posecnn_tpu — a 6D object pose estimation framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the PoseCNN pipeline
 (semantic labeling + center-direction Hough voting + quaternion
-regression with ADD/ADD-S loss + depth-based ICP refinement), built
-for TPU hardware: SPMD over device meshes, functional transforms,
-static shapes, and Pallas kernels for the hot custom ops.
+regression with ADD/ADD-S loss + depth-based ICP refinement): SPMD
+over device meshes, functional transforms, static shapes, and Pallas
+kernels where XLA's own code is far from the hardware's limit.
 
 Capability parity target: mrlooi/PoseCNN (see SURVEY.md). This is not
 a port — the reference's TF1/CUDA architecture is replaced by an

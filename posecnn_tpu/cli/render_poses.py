@@ -4,7 +4,7 @@ Equivalent of the reference's pose-rendering tools
 (ref: tools/render_poses.py / render_poses_color.py, which load saved
 result .mat files and re-render the estimated poses with the OSMesa
 refiner for visual inspection). Here the renderer is the headless
-projected-box/point visualizer (utils/visualize.py — the TPU
+projected-box/point visualizer (utils/visualize.py — this
 framework's replacement for the GL pose_refinement renderer,
 ref lib/pose_refinement/refinement.cpp), and the inputs are this
 framework's saved artifacts:

@@ -5,7 +5,7 @@ Equivalent of the reference's manual ICP check
 which drives synthesizer.solveICP on sampled poses and inspects the
 result visually). Here the drive is quantitative: render a synthetic
 RGB-D scene with known ground-truth poses, perturb each pose, run the
-batched Gauss-Newton refiner (refine/icp.py — the TPU replacement for
+batched Gauss-Newton refiner (refine/icp.py — the replacement for
 lib/synthesize/synthesize.cpp:2052-2381), and report rotation /
 translation error before vs after refinement, plus optional
 visualization images.

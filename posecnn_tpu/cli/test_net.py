@@ -62,9 +62,9 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument(
         "--backgrounds",
-        default="output/bg_pool/*.png",
-        help="background compositing pool for synthetic eval frames — "
-        "keep it the SAME pool training used (mirror of train_net "
+        default="",
+        help="background compositing pool for synthetic eval frames "
+        "(default: none) — keep it the SAME pool training used (mirror of train_net "
         "--backgrounds; r4 evaluated against the 5 demo frames while "
         "training composited the procedural pool, so eval measured a "
         "background domain shift, not model quality). Empty disables",

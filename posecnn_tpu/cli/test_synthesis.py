@@ -5,7 +5,7 @@ Equivalent of the reference's synthesizer inspection tools
 test_synthesis_sym.py / test_synthesis_yumi.py and their
 experiments/scripts/test_synthesis*.sh launchers, which drive
 libsynthesizer.render and eyeball the output). Here the drive renders
-N scenes from the TPU framework's synthesizer (data/synthetic.py — the
+N scenes from this framework's synthesizer (data/synthetic.py — the
 offline replacement for the reference's live OpenGL render thread,
 ref tools/train_net.py:304-317) and reports:
 

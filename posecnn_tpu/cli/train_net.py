@@ -175,15 +175,17 @@ def _train_seg(args, cfg, gen, c, max_iters):
     import jax.numpy as jnp
 
     from posecnn_tpu.core.checkpoint import restore_params, save_params, snapshot_path
-    from posecnn_tpu.core.registry import MODELS
     from posecnn_tpu.engine.train import TrainState, create_optimizer, make_seg_train_step
 
     kwargs = dict(num_classes=c, compute_dtype=jnp.dtype(cfg.compute_dtype))
     if cfg.network == "fcn8":
-        kwargs["fc_dim"] = cfg.train.fc_dim
+        from posecnn_tpu.models.fcn8 import FCN8
+
+        model = FCN8(fc_dim=cfg.train.fc_dim, **kwargs)
     else:
-        kwargs["num_units"] = cfg.train.num_units
-    model = MODELS.get(cfg.network)(**kwargs)
+        from posecnn_tpu.models.resnet50 import ResNet50Seg
+
+        model = ResNet50Seg(num_units=cfg.train.num_units, **kwargs)
 
     def batches():
         while True:
@@ -342,15 +344,15 @@ def main(argv=None):
         "has spent tens of k iters pinned at its chance saddle stops "
         "responding to the adam restart kick, while a freshly "
         "initialized head on trained features learns in ~2k iters "
-        "(r6 rotation forensics, docs/BENCH_NOTES.md)",
+        "(r6 rotation forensics)",
     )
     parser.add_argument(
         "--backgrounds",
-        default="output/bg_pool/*.png",
+        default="",
         help="glob of RGB frames composited behind synthetic renders "
-        "(ref: gt_synthesize_layer/minibatch.py:128-160); empty string "
-        "disables compositing. Default is the procedural pool from "
-        "experiments/gen_backgrounds.py — do NOT point this at the 5 "
+        "(ref: gt_synthesize_layer/minibatch.py:128-160); default: no "
+        "compositing. `python experiments/gen_backgrounds.py` builds a "
+        "procedural pool under output/bg_pool/ — do NOT point this at the 5 "
         "demo frames (/root/reference/data/demo_images): they are the "
         "held-out eval set and training on them reproduces the r3 "
         "background-memorization regression",
@@ -567,7 +569,6 @@ def main_run(args, cfg, max_iters):
         pose_pool_size=cfg.train.pose_pool_size,
         norm_features=cfg.train.norm_features,
         quat_activation=cfg.train.quat_activation,
-        hough_backend=cfg.train.hough_backend,
     )
 
     # real-frame feed when actual dataset frames are on disk; synthetic
@@ -703,7 +704,7 @@ def main_run(args, cfg, max_iters):
             create_gan_train_state,
             make_gan_train_step,
         )
-        from posecnn_tpu.models import FeatureDiscriminator
+        from posecnn_tpu.models.gan import FeatureDiscriminator
 
         disc = FeatureDiscriminator()
         gstate = create_gan_train_state(
@@ -754,7 +755,7 @@ def main_run(args, cfg, max_iters):
                 print(f"--reinit: re-randomized '{name}'")
             params = dict(params)
             params["params"] = inner
-        # Resume semantics (r6 rotation forensics, BENCH_NOTES):
+        # Resume semantics (r6 rotation forensics):
         #   - optimizer state stays FRESH (count 0, zero moments): the
         #     full bias-corrected adam warmup at each resume is the
         #     restart kick the rotation recipe depends on — r5p/r5q
@@ -770,7 +771,7 @@ def main_run(args, cfg, max_iters):
         state = TrainState(
             params=params,
             opt_state=state.opt_state,
-            step=jnp.asarray(step0),
+            step=jnp.asarray(step0, jnp.int32),
         )
     if mesh is not None:
         state = jax.device_put(state, replicated(mesh))
@@ -806,6 +807,8 @@ def main_run(args, cfg, max_iters):
         jnp.asarray(points), jnp.asarray(extents), jnp.asarray(symmetry),
         max_iters=max_iters, mesh=mesh, log_fn=log_fn, snapshot_fn=snapshot_fn,
     )
+    if not have_real:
+        prefetch.close()
     # label the final snapshot with the ACTUAL step (a resumed run may
     # have started at or beyond max_iters)
     final_step = int(np.asarray(jax.device_get(state.step)))

@@ -44,5 +44,4 @@ class Registry:
         return name in self._entries
 
 
-MODELS = Registry("model")
 DATASETS = Registry("dataset")

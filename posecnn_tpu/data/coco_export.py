@@ -1,6 +1,6 @@
 """COCO-format dataset export.
 
-TPU-framework equivalent of the reference's COCO converters
+Equivalent of the reference's COCO converters
 (ref: my_tools/ycb_to_coco.py:1-166, my_tools/fat_to_coco.py,
 my_tools/coco_annotation.py:13-128): per-frame, per-class label masks
 become COCO annotations (polygon segmentation via contour tracing +

@@ -408,7 +408,7 @@ def colorize_model_library(
     (apply_orient_markers via colorize_point_cloud: fixed hues on the
     ±axis caps + a smooth position→RGB chroma field, chosen because
     chroma survives the achromatic Lambertian shading that washed out
-    the v2 brightness ramp — docs/BENCH_NOTES.md r5 rotation campaign).
+    the v2 brightness ramp — r5 rotation campaign).
     Gate via cfg.train.orient_paint so training, eval and the demo all
     see the same appearance; checkpoints trained with it off evaluate
     wrong under it (and vice versa)."""

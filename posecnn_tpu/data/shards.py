@@ -3,7 +3,7 @@
 Parity target: the reference's pre-rendered synthetic data root
 (ref: cfg.TRAIN.SYNROOT/data_syn, lib/fcn/config.py:78-82, consumed
 by the data layer at gt_synthesize_layer/minibatch.py with SYNITER/
-SYNNUM indexing). The live GL thread can't run next to TPU hosts, so
+SYNNUM indexing). No live GL thread runs beside the training step:
 scenes are rendered offline (SyntheticSceneGenerator / native splat)
 into .npz shards and streamed by a reader that applies background
 compositing + augmentation at load time — keeping the domain-

@@ -2,7 +2,7 @@
 
 Replaces the reference's live Pangolin/OpenGL synthesizer thread
 (ref: lib/synthesize/synthesize.cpp render path + the render thread
-in tools/train_net.py:304-317). TPU hosts have no GPU/GL stack, so
+in tools/train_net.py:304-317). Training hosts need no GL stack:
 online mesh rasterization is replaced by a point-based software
 renderer over the real YCB model point clouds: each object's points
 are transformed by a sampled pose, projected with the camera
@@ -416,7 +416,7 @@ class SyntheticSceneGenerator:
         Extension beyond the reference (its GtSynthesizeLayer renders
         every frame fresh, lib/gt_synthesize_layer/layer.py): this host
         has few cores and CPU-side scene synthesis caps the sample
-        rate, while the TPU step is ~free at small batches — so fresh
+        rate, while the device step is ~free at small batches — so fresh
         rendering bounds batch size at ~2. From-scratch training is
         sample-starved at batch 2 (the r5 tiny-CNN calibration needed
         ~10^5 sample-presentations before rotation generalized). The

@@ -11,7 +11,7 @@ Matches the reference evaluators:
   AUC           — accuracy-vs-threshold area (PoseCNN paper metric)
 
 Device-side: the per-image pose errors batch through the jitted
-ADD/ADI kernels (MXU pairwise distances); host-side: accumulation.
+ADD/ADI kernels (matmul pairwise distances); host-side: accumulation.
 """
 
 from __future__ import annotations

@@ -1,53 +1,42 @@
-from posecnn_tpu.models.vgg16 import VGG16Trunk, bilinear_upsample
+"""Model families.
+
+The flagship PoseCNN (and its plain-JAX VGG16 trunk) import eagerly and
+need nothing beyond JAX. The other families are still written in flax;
+they load on first attribute access, so importing PoseCNN never
+imports flax.
+"""
+
+import importlib
+
 from posecnn_tpu.models.posecnn import PoseCNN, PoseCNNOutputs
-from posecnn_tpu.models.detection import PoseCNNDet, detection_losses
-from posecnn_tpu.models.recurrent import (
-    FUSION_CELLS,
-    Add2DCell,
-    FusionCell,
-    GRU3DCell,
-    GRUOriginalCell,
-    RecurrentSegNet,
-    Vanilla2DCell,
-    VideoState,
-)
-from posecnn_tpu.models.resnet50 import ResNet50Seg, ResNet50Trunk
-from posecnn_tpu.models.fcn8 import FCN8
-from posecnn_tpu.models.gan import (
-    DCGANDiscriminator,
-    DCGANGenerator,
-    FeatureDiscriminator,
-    gan_losses,
-)
-from posecnn_tpu.core.registry import MODELS
+from posecnn_tpu.models.vgg16 import VGG16Trunk, bilinear_upsample
 
-MODELS.register("posecnn", PoseCNN)
-MODELS.register("posecnn_det", PoseCNNDet)
-MODELS.register("recurrent_seg", RecurrentSegNet)
-MODELS.register("resnet50_seg", ResNet50Seg)
-MODELS.register("fcn8", FCN8)
+_LAZY = {
+    "PoseCNNDet": "detection",
+    "detection_losses": "detection",
+    "FUSION_CELLS": "recurrent",
+    "Add2DCell": "recurrent",
+    "FusionCell": "recurrent",
+    "GRU3DCell": "recurrent",
+    "GRUOriginalCell": "recurrent",
+    "RecurrentSegNet": "recurrent",
+    "Vanilla2DCell": "recurrent",
+    "VideoState": "recurrent",
+    "ResNet50Seg": "resnet50",
+    "ResNet50Trunk": "resnet50",
+    "FCN8": "fcn8",
+    "DCGANDiscriminator": "gan",
+    "DCGANGenerator": "gan",
+    "FeatureDiscriminator": "gan",
+    "gan_losses": "gan",
+}
 
-__all__ = [
-    "VGG16Trunk",
-    "bilinear_upsample",
-    "PoseCNN",
-    "PoseCNNOutputs",
-    "PoseCNNDet",
-    "detection_losses",
-    "RecurrentSegNet",
-    "VideoState",
-    "FUSION_CELLS",
-    "FusionCell",
-    "GRUOriginalCell",
-    "Vanilla2DCell",
-    "Add2DCell",
-    "GRU3DCell",
-    "ResNet50Seg",
-    "ResNet50Trunk",
-    "FCN8",
-    "DCGANGenerator",
-    "DCGANDiscriminator",
-    "FeatureDiscriminator",
-    "gan_losses",
-    "MODELS",
-]
+
+def __getattr__(name):
+    if name in _LAZY:
+        module = importlib.import_module(f"posecnn_tpu.models.{_LAZY[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module 'posecnn_tpu.models' has no attribute {name!r}")
+
+
+__all__ = ["PoseCNN", "PoseCNNOutputs", "VGG16Trunk", "bilinear_upsample", *_LAZY]

@@ -6,7 +6,7 @@ Parity target: the reference's `vgg16_det`
 conv5_3 → fc6/fc7 → per-class cls score, box deltas and quaternion
 regression. Trained by train_net_det (ref: lib/fcn/train.py:593-653).
 
-TPU-first: the reference's tf.py_func anchor/proposal target layers
+Design: the reference's tf.py_func anchor/proposal target layers
 (host round trips each step) are the pure-JAX ops in ops/rpn.py; the
 whole train graph jits.
 """
@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from posecnn_tpu.models.vgg16 import VGG16Trunk
+from posecnn_tpu.models.vgg16_flax import VGG16Trunk
 from posecnn_tpu.ops.roi_align import roi_align
 from posecnn_tpu.ops.rpn import (
     AnchorTargets,

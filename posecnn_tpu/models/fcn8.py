@@ -3,7 +3,7 @@
 Parity target: the reference's `fcn8_vgg` model
 (ref: lib/networks/fcn8_vgg.py, 467 LoC — VGG16 with fc6/fc7 as
 convolutions, score layers at 1/32, 1/16, 1/8 fused by successive ×2
-bilinear upsampling, final ×8). TPU-first: same structural choices as
+bilinear upsampling, final ×8). Design: same structural choices as
 the other models (NHWC, bf16 compute), frozen bilinear upsampling.
 """
 
@@ -15,7 +15,8 @@ import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
-from posecnn_tpu.models.vgg16 import VGG16Trunk, bilinear_upsample
+from posecnn_tpu.models.vgg16 import bilinear_upsample
+from posecnn_tpu.models.vgg16_flax import VGG16Trunk
 
 
 class FCN8(nn.Module):

@@ -1,6 +1,6 @@
 """PoseCNN: the flagship 6D pose estimation network.
 
-Functional flax re-design of `vgg16_convs`
+Plain-JAX re-design of `vgg16_convs`
 (ref: lib/networks/vgg16_convs.py:79-212):
 
   trunk      VGG16 conv1_1..conv5_3                    (ref :80-97)
@@ -15,20 +15,23 @@ Functional flax re-design of `vgg16_convs`
              weight-mask → L2-normalize per class       (ref :175-197)
   adapt      gradient reversal → fc9(256) → fc(2)       (ref :203-212)
 
-TPU-first: everything static-shaped (fixed MAX-RoI buffers with
-validity masks), bfloat16 compute / fp32 params, dropout as explicit
-rng, and the pose head's 25088×4096 matmul is the natural
-tensor-parallel sharding candidate (see parallel/mesh.py).
+Everything is static-shaped (fixed MAX-RoI buffers with validity
+masks), bfloat16 compute / fp32 params, dropout as explicit rng, and
+the pose head's 25088×4096 matmul is the natural tensor-parallel
+sharding candidate (see parallel/mesh.py). Layers and the init/apply
+entry points are in models/layers.py; the parameter tree has the
+paths flax gave it (`params/VGG16Trunk_0/conv1_1/kernel`, …).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from posecnn_tpu.models.layers import Module, Scope, conv, dense, dropout
 from posecnn_tpu.models.vgg16 import VGG16Trunk, bilinear_upsample
 from posecnn_tpu.ops.hough_voting import (
     HoughOutputs,
@@ -50,7 +53,8 @@ class PoseCNNOutputs(NamedTuple):
     domain_logits: Optional[jnp.ndarray]  # (R, 2)
 
 
-class SkipHead(nn.Module):
+@dataclass(frozen=True)
+class SkipHead(Module):
     """Two-scale FCN skip head (ref: vgg16_convs.py:128-141,151-163)."""
 
     units: int
@@ -63,38 +67,31 @@ class SkipHead(nn.Module):
     # whether full resolution is ever materialized)
     return_lowres: bool = False
 
-    @nn.compact
-    def __call__(self, conv4_3, conv5_3, *, train: bool, dropout_rng=None, keep_prob=1.0):
-        act = nn.relu if self.relu_scores else (lambda v: v)
-        s5 = act(
-            nn.Conv(self.units, (1, 1), dtype=self.compute_dtype, param_dtype=jnp.float32, name=f"{self.name_prefix}_conv5")(conv5_3)
-        )
+    def __call__(self, scope: Scope, conv4_3, conv5_3, *, train: bool, dropout_rng=None, keep_prob=1.0):
+        act = jax.nn.relu if self.relu_scores else (lambda v: v)
+        dt = self.compute_dtype
+        s5 = act(conv(scope.child(f"{self.name_prefix}_conv5"), conv5_3, self.units, 1, dt))
         s5_up = bilinear_upsample(s5, 2)
-        s4 = act(
-            nn.Conv(self.units, (1, 1), dtype=self.compute_dtype, param_dtype=jnp.float32, name=f"{self.name_prefix}_conv4")(conv4_3)
-        )
+        s4 = act(conv(scope.child(f"{self.name_prefix}_conv4"), conv4_3, self.units, 1, dt))
         # crop to the 1/8 map when H/8 or W/8 is odd (the reference
         # pads inputs to ×16 instead — utils/blob.py pad_im(·,16))
         s5_up = s5_up[:, : s4.shape[1], : s4.shape[2], :]
         added = s4 + s5_up
-        if train and keep_prob < 1.0:
-            added = nn.Dropout(rate=1.0 - keep_prob, deterministic=False)(
-                added, rng=dropout_rng
-            )
+        if train:
+            added = dropout(added, keep_prob, dropout_rng)
         # the reference orders upsample→1×1 conv (vgg16_convs.py:138-141);
         # a 1×1 conv is pointwise-linear and bilinear upsampling is
         # spatially-linear, so they commute EXACTLY — conv first at 1/8
         # resolution, then upsample out_channels instead of `units`
-        # channels: ~2× less HBM traffic for the 128-ch vertex head
-        out = nn.Conv(
-            self.out_channels, (1, 1), dtype=self.compute_dtype, param_dtype=jnp.float32, name=f"{self.name_prefix}_out"
-        )(added)
+        # channels: ~2× less memory traffic for the 128-ch vertex head
+        out = conv(scope.child(f"{self.name_prefix}_out"), added, self.out_channels, 1, dt)
         if self.return_lowres:
             return out
         return bilinear_upsample(out, 8)
 
 
-class PoseHead(nn.Module):
+@dataclass(frozen=True)
+class PoseHead(Module):
     """RoI → quaternion regression head (ref: vgg16_convs.py:175-197)."""
 
     num_classes: int
@@ -129,8 +126,7 @@ class PoseHead(nn.Module):
     # every magnitude. "tanh" preserves reference behavior for parity.
     quat_activation: str = "linear"
 
-    @nn.compact
-    def __call__(self, pooled, poses_weight, *, train: bool, dropout_rng=None, keep_prob=1.0):
+    def __call__(self, scope: Scope, pooled, poses_weight, *, train: bool, dropout_rng=None, keep_prob=1.0):
         x = pooled.reshape(pooled.shape[0], -1).astype(jnp.float32)
         if self.norm_features:
             x = x * jax.lax.rsqrt(jnp.mean(x * x, axis=1, keepdims=True) + 1e-6)
@@ -138,13 +134,13 @@ class PoseHead(nn.Module):
         rngs = (
             jax.random.split(dropout_rng, 2) if dropout_rng is not None else (None, None)
         )
-        x = nn.relu(nn.Dense(self.fc_dim, dtype=self.compute_dtype, param_dtype=jnp.float32, name="fc6")(x))
-        if train and keep_prob < 1.0:
-            x = nn.Dropout(rate=1.0 - keep_prob, deterministic=False)(x, rng=rngs[0])
-        x = nn.relu(nn.Dense(self.fc_dim, dtype=self.compute_dtype, param_dtype=jnp.float32, name="fc7")(x))
-        if train and keep_prob < 1.0:
-            x = nn.Dropout(rate=1.0 - keep_prob, deterministic=False)(x, rng=rngs[1])
-        x = nn.Dense(4 * self.num_classes, dtype=jnp.float32, param_dtype=jnp.float32, name="fc8")(x)
+        x = jax.nn.relu(dense(scope.child("fc6"), x, self.fc_dim, self.compute_dtype))
+        if train:
+            x = dropout(x, keep_prob, rngs[0])
+        x = jax.nn.relu(dense(scope.child("fc7"), x, self.fc_dim, self.compute_dtype))
+        if train:
+            x = dropout(x, keep_prob, rngs[1])
+        x = dense(scope.child("fc8"), x, 4 * self.num_classes, jnp.float32)
         poses_tanh = jnp.tanh(x) if self.quat_activation == "tanh" else x
         # mask to the matched class, L2-normalize over the 4 channels
         # (ref: vgg16_convs.py:195-197 multiply + l2_normalize(dim=1);
@@ -164,24 +160,25 @@ class PoseHead(nn.Module):
         return poses_pred, poses_tanh
 
 
-class DomainHead(nn.Module):
+@dataclass(frozen=True)
+class DomainHead(Module):
     """Domain-adaptation classifier behind gradient reversal
     (ref: vgg16_convs.py:203-212)."""
 
     lambda_: float = 0.01
     compute_dtype: Any = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, pooled, *, train: bool, dropout_rng=None, keep_prob=1.0):
+    def __call__(self, scope: Scope, pooled, *, train: bool, dropout_rng=None, keep_prob=1.0):
         x = pooled.reshape(pooled.shape[0], -1)
         x = gradient_reversal(x, self.lambda_)
-        x = nn.relu(nn.Dense(256, dtype=self.compute_dtype, param_dtype=jnp.float32, name="fc9")(x.astype(self.compute_dtype)))
-        if train and keep_prob < 1.0:
-            x = nn.Dropout(rate=1.0 - keep_prob, deterministic=False)(x, rng=dropout_rng)
-        return nn.Dense(2, dtype=jnp.float32, param_dtype=jnp.float32, name="domain_score")(x)
+        x = jax.nn.relu(dense(scope.child("fc9"), x, 256, self.compute_dtype))
+        if train:
+            x = dropout(x, keep_prob, dropout_rng)
+        return dense(scope.child("domain_score"), x, 2, jnp.float32)
 
 
-class PoseCNN(nn.Module):
+@dataclass(frozen=True)
+class PoseCNN(Module):
     """Full PoseCNN graph. Call with images and (in training) GT poses.
 
     Attributes mirror the reference constructor flags
@@ -202,7 +199,6 @@ class PoseCNN(nn.Module):
     hough_num_samples: int = 256
     max_objects: int = 16
     hough_cell_stride: int = 1
-    hough_backend: str = "auto"  # "auto" | "xla" | "pallas" | "pallas_c2f"
     # static pose-head row budget: when >0 and the Hough output has
     # more rows, the top-`max_pose_rois` rows by validity (stable
     # order) are gathered BEFORE RoI pooling, so the fc6/fc7 matmuls
@@ -232,9 +228,9 @@ class PoseCNN(nn.Module):
     quat_activation: str = "linear"  # "linear" | "tanh" (reference parity)
     compute_dtype: Any = jnp.bfloat16
 
-    @nn.compact
     def __call__(
         self,
+        scope: Scope,
         data: jnp.ndarray,  # (B, H, W, 3) mean-subtracted BGR
         extents: jnp.ndarray,  # (C, 3)
         meta_data: jnp.ndarray,  # (B, 48)
@@ -247,13 +243,14 @@ class PoseCNN(nn.Module):
         dropout_rng: Optional[jax.Array] = None,
     ) -> PoseCNNOutputs:
         trunk = VGG16Trunk(compute_dtype=self.compute_dtype)
-        conv4_3, conv5_3 = trunk(data)
+        trunk_scope = scope.child("VGG16Trunk_0")
+        conv4_3, conv5_3 = trunk(trunk_scope, data)
         if self.input_format == "RGBD":
             if data_p is None:
                 raise ValueError("RGBD input_format requires data_p")
             # shared-weight second tower (ref: vgg16_convs.py:99-126;
-            # weight sharing via module reuse replaces `_p` aliasing)
-            conv4_3_p, conv5_3_p = trunk(data_p)
+            # weight sharing via scope reuse replaces `_p` aliasing)
+            conv4_3_p, conv5_3_p = trunk(trunk_scope, data_p)
             conv4_3 = jnp.concatenate([conv4_3, conv4_3_p], axis=-1)
             conv5_3 = jnp.concatenate([conv5_3, conv5_3_p], axis=-1)
 
@@ -268,8 +265,7 @@ class PoseCNN(nn.Module):
             relu_scores=True,
             name_prefix="score",
             compute_dtype=self.compute_dtype,
-            name="seg_head",
-        )(conv4_3, conv5_3, train=train, dropout_rng=rngs[0], keep_prob=keep_prob)
+        )(scope.child("seg_head"), conv4_3, conv5_3, train=train, dropout_rng=rngs[0], keep_prob=keep_prob)
         score = score.astype(jnp.float32)
         log_prob = jax.nn.log_softmax(score, axis=-1)
         prob = jax.nn.softmax(score, axis=-1)
@@ -296,8 +292,7 @@ class PoseCNN(nn.Module):
                 name_prefix="vertex",
                 compute_dtype=self.compute_dtype,
                 return_lowres=True,
-                name="vertex_head",
-            )(conv4_3, conv5_3, train=train, dropout_rng=rngs[1], keep_prob=keep_prob)
+            )(scope.child("vertex_head"), conv4_3, conv5_3, train=train, dropout_rng=rngs[1], keep_prob=keep_prob)
             vertex_lr = vertex_lr.astype(jnp.float32)
             vertex_pred = bilinear_upsample(vertex_lr, 8)
 
@@ -316,7 +311,6 @@ class PoseCNN(nn.Module):
                 num_samples=self.hough_num_samples,
                 max_objects_per_image=self.max_objects,
                 cell_stride=self.hough_cell_stride,
-                backend=self.hough_backend,
             )
 
             if self.pose_reg:
@@ -351,12 +345,11 @@ class PoseCNN(nn.Module):
                     compute_dtype=self.compute_dtype,
                     norm_features=self.norm_features,
                     quat_activation=self.quat_activation,
-                    name="pose_head",
-                )(pooled, pose_weight, train=train, dropout_rng=rngs[2], keep_prob=keep_prob)
+                )(scope.child("pose_head"), pooled, pose_weight, train=train, dropout_rng=rngs[2], keep_prob=keep_prob)
 
                 if self.adaptation:
-                    domain_logits = DomainHead(name="domain_head")(
-                        pooled, train=train, dropout_rng=rngs[3], keep_prob=keep_prob
+                    domain_logits = DomainHead()(
+                        scope.child("domain_head"), pooled, train=train, dropout_rng=rngs[3], keep_prob=keep_prob
                     )
 
         return PoseCNNOutputs(

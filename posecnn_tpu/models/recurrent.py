@@ -1,6 +1,6 @@
 """Recurrent multi-frame video segmentation network.
 
-TPU-native re-design of the reference's `vgg16` video net
+JAX re-design of the reference's `vgg16` video net
 (ref: lib/networks/vgg16.py:41-166): per-frame VGG16 trunk + skip
 seg features, hidden state warped into the current frame via
 compute_flow (depth + relative camera pose), fused by the running
@@ -21,7 +21,8 @@ import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
-from posecnn_tpu.models.vgg16 import VGG16Trunk, bilinear_upsample
+from posecnn_tpu.models.vgg16 import bilinear_upsample
+from posecnn_tpu.models.vgg16_flax import VGG16Trunk
 from posecnn_tpu.ops.flow import compute_flow
 
 

@@ -2,7 +2,7 @@
 
 Parity target: the reference's `resnet50` model
 (ref: lib/networks/resnet50.py, 232 LoC — ResNet50 trunk + the same
-two-scale seg skip head). TPU-first: NHWC, bf16 compute / fp32
+two-scale seg skip head). Design: NHWC, bf16 compute / fp32
 params, BatchNorm folded as non-trainable scale/offset in inference
 style (the reference freezes BN statistics from the pretrained model).
 """

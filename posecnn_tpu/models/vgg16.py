@@ -1,4 +1,4 @@
-"""VGG16 convolutional trunk (flax), the PoseCNN feature extractor.
+"""VGG16 convolutional trunk, the PoseCNN feature extractor.
 
 Architecture parity with the reference's chained-DSL trunk
 (ref: lib/networks/vgg16_convs.py:79-97): conv1_1..conv5_3 with 2×2
@@ -6,80 +6,57 @@ max pools after stages 1-4 (conv5 keeps 1/16 resolution — pool5 is
 intentionally absent, matching the FCN design). Returns conv4_3 (1/8)
 and conv5_3 (1/16) for the skip heads.
 
-TPU-first notes: NHWC layout (XLA-native on TPU), bfloat16 compute
-with fp32 parameters (MXU-native mixed precision), optional
-`jax.checkpoint` rematerialization of the trunk to trade FLOPs for
-HBM. The dual-tower RGBD variant (`_p` suffix weight sharing,
-ref: vgg16_convs.py:99-126 and network.py:91-100) is expressed by
-running the same module twice — true weight sharing by construction
-instead of the reference's name-aliasing .npy loader hack.
+NHWC layout, bfloat16 compute with fp32 parameters. The dual-tower
+RGBD variant (`_p` suffix weight sharing, ref: vgg16_convs.py:99-126
+and network.py:91-100) is expressed by running the same scope twice —
+true weight sharing by construction instead of the reference's
+name-aliasing .npy loader hack.
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Any, Tuple
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
+
+from posecnn_tpu.models.layers import Module, Scope, conv, max_pool_2x2
 
 # (filters, num_convs) per stage — VGG16 (ref: vgg16_convs.py:80-97)
 VGG16_STAGES: Tuple[Tuple[int, int], ...] = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
 
 
-class VGG16Trunk(nn.Module):
+@dataclass(frozen=True)
+class VGG16Trunk(Module):
     """Returns (conv4_3, conv5_3) feature maps at 1/8 and 1/16."""
 
     compute_dtype: Any = jnp.bfloat16
 
-    @nn.compact
-    def __call__(self, x: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    def __call__(self, scope: Scope, x: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
         x = x.astype(self.compute_dtype)
         conv4_3 = None
         for stage_idx, (filters, num_convs) in enumerate(VGG16_STAGES, start=1):
             for conv_idx in range(1, num_convs + 1):
-                x = nn.Conv(
-                    filters,
-                    (3, 3),
-                    padding="SAME",
-                    dtype=self.compute_dtype,
-                    param_dtype=jnp.float32,
-                    name=f"conv{stage_idx}_{conv_idx}",
-                )(x)
-                x = nn.relu(x)
+                layer = scope.child(f"conv{stage_idx}_{conv_idx}")
+                x = jax.nn.relu(conv(layer, x, filters, 3, self.compute_dtype))
             if stage_idx == 4:
                 conv4_3 = x
             if stage_idx < 5:
                 # 2×2/2 max pool, SAME padding (ref: network.py max_pool)
-                x = nn.max_pool(x, (2, 2), strides=(2, 2), padding="SAME")
+                x = max_pool_2x2(x)
         return conv4_3, x
 
 
-def bilinear_upsample_kernel(factor: int, channels: int) -> jnp.ndarray:
-    """Fixed bilinear deconv filter (HWIO, per-channel), matching the
-    reference's frozen bilinear deconvolutions
-    (ref: network.py deconv with trainable=False, vgg16_convs.py:122,138).
-    Kernel size 2·factor, stride factor."""
-    size = 2 * factor
-    og = (jnp.arange(size) % size).astype(jnp.float32)
-    center = factor - 0.5 if size % 2 == 0 else factor - 1.0
-    filt_1d = 1.0 - jnp.abs(og - center) / factor
-    filt = filt_1d[:, None] * filt_1d[None, :]
-    kernel = jnp.zeros((size, size, channels, channels), jnp.float32)
-    idx = jnp.arange(channels)
-    kernel = kernel.at[:, :, idx, idx].set(filt[:, :, None])
-    return kernel
-
-
 def bilinear_upsample(x: jnp.ndarray, factor: int) -> jnp.ndarray:
-    """Frozen bilinear ×factor upsampling via transposed conv.
+    """Frozen bilinear ×factor upsampling (the reference's fixed-filter
+    deconvolution, ref: network.py deconv with trainable=False,
+    vgg16_convs.py:122,138).
 
-    Implemented with jax.image.resize (linear) which XLA lowers to the
-    same fixed-filter computation without materializing the kernel —
-    cheaper on TPU than an explicit 32×32 deconv for the ×8 head.
-    Output size is exactly ×factor (the reference's deconv with SAME
-    padding produces the same size).
+    `jax.image.resize` (linear) computes the same fixed filter without
+    materializing a 2·factor-wide kernel. Output size is exactly
+    ×factor (the reference's deconv with SAME padding produces the same
+    size).
     """
-    import jax
-
     b, h, w, c = x.shape
     return jax.image.resize(x, (b, h * factor, w * factor, c), method="linear").astype(x.dtype)

@@ -1,6 +1,6 @@
 """Pixel-embedding metric losses: triplet + lifted structured.
 
-TPU-native equivalents of the `Triplet` and `Liftedstruct` custom ops
+JAX equivalents of the `Triplet` and `Liftedstruct` custom ops
 (ref: lib/triplet_loss/triplet_loss_op_gpu.cu.cc:TripletForward —
 squared-distance triplet hinge max(0, D_ij − D_ik + margin) averaged
 over one triplet per pixel; lib/lifted_structured_loss/
@@ -9,7 +9,7 @@ lifted_structured_loss_op.cc — Song et al. CVPR16 lifted loss).
 The reference samples triplets on the host (one per pixel, random
 positive/negative) and hands index triples to CUDA. Here sampling is
 jit-side: deterministic category-aware sampling via jax.random, the
-distances via a Gram matrix on the MXU, hinge + mean as fused
+distances via a Gram matrix matmul, hinge + mean as fused
 elementwise ops — autodiff reproduces the reference's analytic
 gradients (they are the plain derivative of the same expression).
 """
@@ -69,7 +69,7 @@ def lifted_structured_loss(
     margin: float = 1.0,
 ):
     """Lifted structured embedding loss (Song et al. CVPR16; ref:
-    lib/lifted_structured_loss). Dense over all pairs via an MXU Gram
+    lib/lifted_structured_loss). Dense over all pairs via a Gram
     matrix:
       J_ij = log( Σ_{k∉i} e^{m−D_ik} + Σ_{l∉j} e^{m−D_jl} ) + D_ij
       L = 1/(2|P|) Σ_{(i,j)∈P} max(0, J_ij)²

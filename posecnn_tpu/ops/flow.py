@@ -1,6 +1,6 @@
 """Recurrent-state flow warping (video segmentation path).
 
-TPU-native equivalent of the `Computeflow` op
+JAX equivalent of the `Computeflow` op
 (ref: lib/computing_flow_layer/computing_flow_op.cc:66-248): for each
 current-frame pixel with depth, backproject with K⁻¹ (meta[9:18]),
 transform by pose_live2world (meta[30:42]) into the previous frame's
@@ -10,7 +10,7 @@ consistency |Z_prev − Z1| < threshold. Outputs the warped state,
 warped weights (clamped at max_weight), and the current frame's
 camera-frame point map.
 
-TPU formulation: the neighborhood loop becomes a static unrolled set
+Formulation: the neighborhood loop becomes a static unrolled set
 of shifted gathers (vectorized, no scatter); everything else is
 elementwise — XLA fuses the whole warp into a couple of kernels.
 """

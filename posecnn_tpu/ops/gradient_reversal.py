@@ -1,6 +1,6 @@
 """Gradient reversal (domain adaptation, Ganin & Lempitsky).
 
-TPU-native equivalent of the `Gradientreversal` CUDA op
+JAX equivalent of the `Gradientreversal` CUDA op
 (ref: lib/gradient_reversal_layer/gradient_reversal_op.cc: identity
 forward, −λ·grad backward): a two-line custom_vjp — exactly the kind
 of op where a hand-written CUDA kernel dissolves into the autodiff

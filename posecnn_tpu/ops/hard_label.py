@@ -1,6 +1,6 @@
 """Hard-label op: probability + GT label → one-hot training weights.
 
-TPU-native equivalent of the `Hardlabel` TF custom op
+JAX equivalent of the `Hardlabel` TF custom op
 (ref: lib/hard_label_layer/hard_label_op.cc:60-117): for each pixel
 with GT label g, the output one-hot weight at channel g is 1 iff
   g != -1 and (g > 0 or prob[g] < threshold)

@@ -85,7 +85,7 @@ def build_vertex_targets(
     reference builds these on the host and ships (H, W, 3C) maps
     through the feed queue; shipping (C, 2)+(C,) instead cuts ~160 MB
     of host work + host→device transfer per 480×640×22-class frame,
-    and the VPU build fuses into the loss).
+    and the elementwise build fuses into the loss).
 
     Returns (targets, weights), each (B, H, W, 3C) float32 — identical
     values to the host path (single-instance-per-class semantics: the
@@ -96,7 +96,7 @@ def build_vertex_targets(
     one_hot = (label[..., None] == jnp.arange(c)[None, None, None, :]).astype(
         jnp.float32
     )  # (B, H, W, C)
-    # per-pixel class features via ONE one-hot matmul on the MXU
+    # per-pixel class features via ONE one-hot matmul
     # (per-pixel take_along_axis gathers run on the scalar unit and
     # dominate the step time; a (HW,C)×(C,4) matmul is ~free)
     feats = jnp.stack(
@@ -105,7 +105,7 @@ def build_vertex_targets(
         axis=-1,
     )  # (B, C, 4)
     # HIGHEST precision: center coordinates reach ~600 px and a bf16
-    # single-pass matmul (TPU default) would quantize them by ~2 px,
+    # single-pass matmul (a reduced-precision default) would quantize them by ~2 px,
     # breaking the value-identical contract with the host path
     pix = jnp.einsum(
         "bhwc,bcf->bhwf", one_hot, feats, precision=jax.lax.Precision.HIGHEST

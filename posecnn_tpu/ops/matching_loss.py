@@ -4,7 +4,7 @@ Parity target: the `Matching` custom op (ref: lib/matching_loss/
 matching_loss_op.cc + lib/rendering/rendering.cpp — renders the model
 at predicted vs GT pose with an OSMesa GL context and compares).
 
-TPU-first re-design: the GL rasterizer is replaced by differentiable
+Re-design: the GL rasterizer is replaced by differentiable
 soft point splatting — each transformed model point contributes a
 Gaussian blob to a low-resolution silhouette map; the loss is a soft
 Dice mismatch between the predicted-pose silhouette and the target

@@ -2,10 +2,10 @@
 
 Replaces both the pure-python NMS (ref: lib/utils/nms.py:3, used by
 the test path at lib/fcn/test.py:198) and the CUDA bitmask NMS
-(ref: lib/nms/nms_kernel.cu). TPU-first design: the sequential
+(ref: lib/nms/nms_kernel.cu). Design: the sequential
 greedy scan becomes a `lax.scan` over score-sorted boxes with a
 running suppression mask — O(N²) IoU computed once as a dense matrix
-(VPU-friendly), then a linear scan of N steps. No dynamic output
+(elementwise), then a linear scan of N steps. No dynamic output
 size: returns a keep mask aligned with the input order.
 """
 

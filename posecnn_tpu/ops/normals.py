@@ -1,12 +1,12 @@
 """Depth → normal map computation.
 
-TPU-native equivalent of the CUDA normal estimator
+JAX equivalent of the CUDA normal estimator
 (ref: lib/normals/compute_normals.cu, bound via gpu_normals.pyx and
 used by the NORMAL input mode, gt_synthesize_layer/minibatch.py:206-223).
 The reference bilateral-filters depth then differentiates; here the
 cross-product of central-difference tangent vectors on the
 backprojected point map gives the same normals, as pure stencil ops
-XLA fuses (no kernel needed — this is VPU-bound elementwise work).
+XLA fuses (no kernel needed — this is elementwise work).
 """
 
 from __future__ import annotations

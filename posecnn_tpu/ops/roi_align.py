@@ -1,15 +1,15 @@
 """RoI pooling on fixed-size RoI buffers.
 
-TPU-native equivalent of the `RoiPool` Fast-RCNN max-pooling op
+Static-shaped equivalent of the `RoiPool` Fast-RCNN max-pooling op
 (ref: lib/roi_pooling_layer/roi_pooling_op.cc + roi_pooling_op_gpu.cu.cc,
 wrapper network.py:321-332; used at vgg16_convs.py:177-183 with
 pooled 7×7 over conv5_3 (1/16) and conv4_3 (1/8), results summed).
 
-TPU-first re-design: the CUDA kernel's per-bin argmax over a dynamic
-pixel window is replaced by RoI-Align-style bilinear sampling at a
-static 2×2 sample grid per bin, max-reduced per bin. This keeps every
-shape static, turns the gather into vectorized interpolation the VPU
-streams, and is differentiable for free (the reference needs a
+Re-design: the CUDA kernel's per-bin argmax over a dynamic pixel
+window is replaced by RoI-Align-style bilinear sampling at a static
+2×2 sample grid per bin, max-reduced per bin. This keeps every shape
+static, turns the gather into vectorized interpolation, and is
+differentiable for free (the reference needs a
 hand-written backward scatter over stored argmax indices,
 roi_pooling_op_gpu.cu.cc). Bilinear max-sampling is a strict
 refinement of RoIPool's quantized max (Mask R-CNN, He et al. 2017);
@@ -115,18 +115,17 @@ def roi_align_mxu(
     spatial_scale: float = 1.0 / 16.0,
     samples_per_bin: int = 2,
 ) -> jnp.ndarray:
-    """RoI-Align as two dense interpolation matmuls (MXU formulation).
+    """RoI-Align as two dense interpolation matmuls.
 
     Numerically identical sampling grid to `roi_align` (same positions,
     same clamped bilinear taps, same per-bin max), but expressed as
       S = Wy · F · Wxᵀ
     with Wy (R, p·s, H), Wx (R, p·s, W) bilinear weight matrices and
-    the batch one-hot folded into Wy. On TPU this replaces the 4-corner
-    gather (and, critically, its SCATTER-ADD backward into the feature
-    map) with batched matmuls — forward AND backward both run on the
-    MXU. ~20 GFLOP per 128 RoIs at VGG conv4/5 sizes ≈ sub-ms vs the
-    multi-ms gather/scatter path it replaces (the reference's CUDA op
-    has a hand-written backward scatter, roi_pooling_op_gpu.cu.cc).
+    the batch one-hot folded into Wy. This replaces the 4-corner
+    gather (and its scatter-add backward into the feature map) with
+    batched matmuls, forward and backward: ~20 GFLOP per 128 RoIs at
+    VGG conv4/5 sizes (the reference's CUDA op has a hand-written
+    backward scatter, roi_pooling_op_gpu.cu.cc).
     """
     b, h, w, c = features.shape
     r = rois.shape[0]
@@ -151,7 +150,7 @@ def roi_align_mxu(
     onehot = jax.nn.one_hot(batch, b, dtype=dtype)  # (R, B)
     wyb = (onehot[:, None, :, None] * wy[:, :, None, :]).reshape(r, p * s, b * h)
 
-    # S = Wyb · F · Wxᵀ  — two MXU contractions
+    # S = Wyb · F · Wxᵀ  — two matmul contractions
     f2 = features.reshape(b * h, w * c)
     t = (wyb.reshape(r * p * s, b * h) @ f2).reshape(r, p * s, w, c)
     pooled = jnp.einsum("rywc,rxw->ryxc", t, wx)

@@ -5,7 +5,7 @@ Parity target: the reference's RPN python layers wrapped in tf.py_func
 proposal_layer.py:15, anchor_target_layer.py:18,
 proposal_target_layer.py:17 with per-class pose targets at :98).
 
-TPU-first: the reference's per-step device→host→device py_func round
+Design: the reference's per-step device→host→device py_func round
 trips (SURVEY.md §3.5) become pure-JAX top-k + masked NMS + fixed-size
 sampling — everything stays on device inside one jit.
 """

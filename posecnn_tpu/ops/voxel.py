@@ -1,6 +1,6 @@
 """Voxel-grid ops: 2D↔3D feature lifting for the 3D/video experiments.
 
-TPU-native equivalents of the `Backproject`, `Project` and
+JAX equivalents of the `Backproject`, `Project` and
 `Computelabel` custom ops:
 
   backproject — lift image features + labels into a grid_size³ voxel

@@ -1,12 +1,12 @@
 """Device mesh + sharding rules for distributed training.
 
 This is NEW capability — the reference is strictly single-GPU
-(SURVEY.md §2.4: one `tf.Session`, no NCCL/MPI anywhere). The TPU
+(SURVEY.md §2.4: one `tf.Session`, no NCCL/MPI anywhere). The
 design follows the standard JAX recipe: build a `Mesh` with a 'data'
 axis (optionally a 'model' axis for the 25088×4096 fc6/fc7 matmuls),
 annotate batch arrays with `NamedSharding(P('data', …))`, replicate
 parameters (or shard fc kernels over 'model'), and let XLA insert the
-gradient psum over ICI under `jit`.
+gradient all-reduce under `jit` (NCCL over NVLink on a GPU host).
 
 Scaling story:
   DP  — batch axis over 'data'; gradients all-reduced by XLA.

@@ -1,6 +1,6 @@
 """TSDF + semantic-probability fusion with camera tracking ("KinectFusion").
 
-TPU-native re-design of the reference's KinectFusion subsystem
+JAX re-design of the reference's KinectFusion subsystem
 (ref: lib/kinect_fusion/ — TSDF+probability composite voxels
 include/df/voxel/{tsdf,probability,compositeVoxel}.h, depth fusion
 src/fusion/fusion.cu, camera-tracking projective point-plane ICP
@@ -10,7 +10,7 @@ python API kfusion.pyx:28-77 feed_data/back_project/solve_pose/
 fuse_depth/extract_surface used by the video test loop
 lib/fcn/test.py:407-520).
 
-TPU formulation — every stage is a dense, fixed-shape XLA program:
+Formulation — every stage is a dense, fixed-shape XLA program:
   fuse      voxel centers → camera projection → truncated SDF running
             average + per-voxel class-probability running average
             (one fused elementwise pass over the G³ grid; replaces the
@@ -249,7 +249,7 @@ def track_camera(
 # Each grid cube is split into 6 tetrahedra around the v0–v6 diagonal;
 # each tet emits 0–2 triangles on its iso-crossing edges. 16-case
 # tables for a tet are tiny and exact (unlike the 256-case cube table),
-# and every shape is static — the TPU-native counterpart of the
+# and every shape is static — the static-shape counterpart of the
 # reference's marchingCubes.cu (ref: lib/kinect_fusion/src/
 # marchingCubes/marchingCubes.cu, weighted-vertex interpolation +
 # per-triangle labels).

@@ -1,6 +1,6 @@
 """Depth-based pose refinement: batched point-plane Gauss-Newton ICP.
 
-TPU-native re-design of the reference's test-time `solveICP`
+JAX re-design of the reference's test-time `solveICP`
 (ref: lib/synthesize/synthesize.cpp:2052-2381): the reference renders
 the model at the predicted pose with OpenGL, re-estimates translation
 from masked depth, polishes with Nelder-Mead, then refines 8
@@ -9,15 +9,15 @@ depth-offset hypotheses with a GPU Gauss-Newton point-plane ICP
 thrust-reduced J^T J) and scores them with a kd-tree radius-match
 fraction (SegICP metric, ref: synthesize.cpp:2312-2355).
 
-TPU formulation — no renderer, no kd-tree, no host round trips:
+Formulation — no renderer, no kd-tree, no host round trips:
   * model "rendering" → direct transformation of the class point
     cloud + projective data association against the backprojected
     depth map (bilinear-sampled point + normal maps);
   * translation re-estimate → masked mean depth offset along the ray;
   * hypothesis sweep → a vmapped axis of 8 depth offsets
     (ref: synthesize.cpp:2204-2272 hypothesis loop);
-  * Gauss-Newton → J^T J accumulated as a (P,6)ᵀ(P,6) matmul on the
-    MXU, 6×6 solve per (object, hypothesis) via jnp.linalg.solve,
+  * Gauss-Newton → J^T J accumulated as a (P,6)ᵀ(P,6) matmul in full
+    float32, 6×6 solve per (object, hypothesis) via jnp.linalg.solve,
     pose update by se3 exponential; lax.scan over iterations;
   * scoring → fraction of model points whose associated observed
     point lies within a radius (projective SegICP stand-in).
@@ -108,9 +108,12 @@ def _gn_step(
     jac = jnp.concatenate([jw, obs_normals], axis=-1)  # (P, 6)
     wvalid = obs_valid.astype(jnp.float32)
     jw_ = jac * wvalid[:, None]
-    jtj = jw_.T @ jac  # MXU 6×6
+    # full float32: the 6×6 system spans 4-5 decades (see above), and a
+    # TF32 product would keep only ~3 digits of it; P×6 costs nothing
+    hi = jax.lax.Precision.HIGHEST
+    jtj = jnp.dot(jw_.T, jac, precision=hi)
     jtj = jtj + damping * jnp.diag(jnp.diag(jtj)) + 1e-4 * jnp.eye(6, dtype=jac.dtype)
-    jtr = jw_.T @ res
+    jtr = jnp.dot(jw_.T, res, precision=hi)
     delta = jnp.linalg.solve(jtj, jtr)  # (6,)
     # trust region: clamp rotation and translation step magnitudes
     rot_n = jnp.linalg.norm(delta[:3])

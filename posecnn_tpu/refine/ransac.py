@@ -1,12 +1,12 @@
 """RANSAC center / pose estimation from label + vertex predictions.
 
-TPU-native re-design of the standalone Ransac3D library
+JAX re-design of the standalone Ransac3D library
 (ref: lib/pose_estimation/ransac3D.cpp:estimatePose/estimateCenter,
 Brachmann-style hypothesis sampling + inlier scoring, bound via
 ransac.pyx) and the CPU Hough op's RANSAC refinement path
 (ref: lib/hough_voting_layer/hough_voting_op.cc:408-516).
 
-TPU formulation: a FIXED number of hypotheses is sampled and scored
+Formulation: a FIXED number of hypotheses is sampled and scored
 in parallel (vmap) instead of adaptive sequential RANSAC — the
 classic trade of control flow for throughput:
 

@@ -20,10 +20,10 @@ from typing import Callable
 
 
 @contextlib.contextmanager
-def profile_trace(log_dir: str = "/tmp/jax-trace"):
-    """Capture a device trace for the enclosed region:
+def profile_trace(log_dir: str):
+    """Capture a device trace for the enclosed region into log_dir:
 
-        with profile_trace("/tmp/trace"):
+        with profile_trace("output/trace"):
             state, _ = train_step(state, batch, rng)
             jax.block_until_ready(state)
     """

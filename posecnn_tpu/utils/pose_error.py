@@ -6,9 +6,9 @@ Semantics match lib/utils/pose_error.py (Hodan et al. ECCVW16 impl):
   reproj — mean 2D reprojection error                (ref: :25-53)
   re / te — geodesic degrees / L2 meters             (ref: :92-117)
 
-TPU-first design notes: the reference's cKDTree nearest-neighbor query
+Design notes: the reference's cKDTree nearest-neighbor query
 becomes a dense pairwise distance computed via a Gram matrix on the
-MXU (‖a−b‖² = ‖a‖² − 2a·b + ‖b‖²) — exact, batched, jit-safe. All
+matmul (‖a−b‖² = ‖a‖² − 2a·b + ‖b‖²) — exact, batched, jit-safe. All
 functions vmap over leading axes.
 """
 
@@ -32,12 +32,12 @@ def add_error(r_est, t_est, r_gt, t_gt, pts):
 def adi_error(r_est, t_est, r_gt, t_gt, pts):
     """ADD-S (ref: pose_error.py:71-90): for each GT-transformed point,
     distance to nearest estimated-transformed point; kd-tree replaced by
-    an MXU Gram-matrix pairwise distance."""
+    a Gram-matrix pairwise distance."""
     rt_est = jnp.concatenate([r_est, t_est[..., None]], -1)
     rt_gt = jnp.concatenate([r_gt, t_gt[..., None]], -1)
     pe = transform_points(rt_est, pts)  # (..., P, 3)
     pg = transform_points(rt_gt, pts)
-    # pairwise squared distances via Gram matrix (fp32 accumulate on MXU)
+    # pairwise squared distances via Gram matrix (fp32 accumulate)
     gram = jnp.einsum("...ik,...jk->...ij", pg, pe, preferred_element_type=jnp.float32)
     sq = (
         jnp.sum(pg * pg, -1, keepdims=True)

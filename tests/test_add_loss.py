@@ -150,7 +150,7 @@ def test_add_loss_num_valid_normalization(rng):
 
 
 def test_add_loss_batched_equals_per_row(rng):
-    """The hand-batched formulation (TPU jit(grad(vmap)) miscompile
+    """The hand-batched formulation (jit(grad(vmap)) miscompile
     workaround, see module docstring) must equal summing independent
     single-row calls — both in value and in gradient."""
     import jax

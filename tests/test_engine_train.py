@@ -98,7 +98,7 @@ def test_compute_losses_finite(setup):
 
 
 def test_compact_feed_matches_float_feed(setup):
-    """uint8 tunnel compression (pipeline.compact_feed →
+    """uint8 feed compression (pipeline.compact_feed →
     train.decompress_feed) is value-preserving: same losses as the
     float32 feed to quantization tolerance, with depth dropped."""
     from posecnn_tpu.data.pipeline import compact_feed

@@ -7,8 +7,13 @@ that the op recovers the center, depth, class, and initial translation
 plus the GT-matching path in training mode.
 """
 
+import functools
+import importlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from posecnn_tpu.ops.hough_voting import hough_voting
 
@@ -400,3 +405,169 @@ def test_append_gt_rois_prepends_exact_supervision():
         )
     )(jnp.asarray(q1))
     assert np.all(np.asarray(g) == 0)
+
+
+# --- scenes checked against their known centres and depths, on the
+# dense XLA path and on the GPU's coarse-to-fine kernels (run here in
+# Pallas interpret mode) ---
+
+hv = importlib.import_module("posecnn_tpu.ops.hough_voting")
+
+
+@pytest.fixture(params=["dense", "c2f"])
+def vote_path(request, monkeypatch):
+    """Single-instance vote path: the dense reduction, or the c2f
+    kernels the GPU selects, interpreted on the CPU."""
+    if request.param == "c2f":
+        monkeypatch.setattr(
+            hv, "_kernel_slot_max",
+            lambda vote_threshold: functools.partial(hv._slot_max_c2f, interpret=True)
+            if vote_threshold <= 0 else None,
+        )
+    return request.param
+
+
+def _detections(out, image=0):
+    """{class: (centre_x, centre_y, depth)} of the valid rows of one image."""
+    valid = np.asarray(out.valid)
+    rois = np.asarray(out.rois)
+    poses = np.asarray(out.poses_init)
+    found = {}
+    for i in np.nonzero(valid & (rois[:, 0] == image))[0]:
+        cx, cy = (rois[i, 2] + rois[i, 4]) / 2, (rois[i, 3] + rois[i, 5]) / 2
+        found[int(rois[i, 1])] = (cx, cy, poses[i, 6])
+    return found
+
+
+def _assert_found(found, objects, tol_px=2.0):
+    assert sorted(found) == sorted(o[0] for o in objects)
+    for cls, cx, cy, depth, _, _ in objects:
+        x, y, d = found[cls]
+        assert abs(x - cx) <= tol_px and abs(y - cy) <= tol_px, (cls, x, y)
+        np.testing.assert_allclose(d, depth, rtol=0.02)
+
+
+@pytest.mark.parametrize(
+    "objects",
+    [
+        [(2, 100.0, 60.0, 1.2, 30, 25)],
+        [(1, 40.0, 40.0, 0.8, 22, 22), (3, 120.0, 80.0, 1.5, 25, 20)],
+        # object at the image corner (window-origin clamping)
+        [(2, 3.0, 3.0, 1.0, 10, 10)],
+        # three classes, one touching the right edge
+        [(1, 30.0, 30.0, 0.9, 15, 15), (2, 150.0, 60.0, 1.3, 12, 20),
+         (3, 80.0, 100.0, 1.1, 20, 12)],
+    ],
+    ids=["one", "two", "corner", "three_edge"],
+)
+def test_scene_centres_and_depths(vote_path, objects):
+    _assert_found(_detections(run_hough(*make_scene(objects))), objects)
+
+
+def test_scene_small_object_dropped_corner_kept(vote_path):
+    # 9×9 px is below label_threshold=100 and is dropped; the corner
+    # object is kept with its exact centre
+    small, corner = (1, 30.0, 100.0, 2.0, 4, 4), (2, 3.0, 3.0, 1.0, 10, 10)
+    out = run_hough(*make_scene([small, corner]))
+    _assert_found(_detections(out), [corner])
+
+
+def test_scene_empty(vote_path):
+    label = np.zeros((H, W), np.int32)
+    vert = np.zeros((H, W, 3 * NUM_CLASSES), np.float32)
+    assert np.asarray(run_hough(label, vert).valid).sum() == 0
+
+
+def test_scene_train_mode_gt_matching(vote_path):
+    obj = (2, 100.0, 60.0, 1.2, 30, 25)
+    gt = np.zeros((2, 13), np.float32)
+    gt[0, 1] = 2
+    gt[0, 6:10] = [0.6, 0.0, 0.8, 0.0]
+    gt[0, 10:13] = [(100.0 - PX) / FX * 1.2, 0.0, 1.2]
+    label, vert = make_scene([obj])
+    out = run_hough(label, vert, is_train=True, gt_poses=gt, gt_valid=np.array([True, False]))
+    valid = np.asarray(out.valid)
+    assert valid.sum() == 9
+    _assert_found(_detections(out), [obj], tol_px=0.05 * 62 + 2.0)
+    tgt = np.asarray(out.poses_target)[valid]
+    np.testing.assert_allclose(tgt[:, 8:12], np.tile(gt[0, 6:10], (9, 1)), atol=1e-6)
+    assert np.asarray(out.poses_weight)[valid].sum() == 9 * 4
+
+
+def test_scene_batch4(vote_path):
+    scenes = [
+        [(1, 40.0, 40.0, 0.8, 22, 22)],
+        [(2, 100.0, 60.0, 1.2, 30, 25)],
+        [(3, 120.0, 80.0, 1.5, 25, 20)],
+        [(1, 60.0, 70.0, 1.0, 20, 20), (3, 120.0, 40.0, 1.4, 22, 18)],
+    ]
+    labels, verts = zip(*(make_scene(s) for s in scenes))
+    out = hough_voting(
+        jnp.asarray(np.stack(labels)), jnp.asarray(np.stack(verts)),
+        jnp.asarray(EXTENTS), jnp.asarray(np.stack([make_meta()] * 4)),
+        label_threshold=100, num_samples=128, max_classes=3,
+        max_objects_per_image=4,
+    )
+    for b, objects in enumerate(scenes):
+        _assert_found(_detections(out, image=b), objects)
+
+
+def _centres(out):
+    rois = np.asarray(out.rois)[np.asarray(out.valid)]
+    return np.stack([(rois[:, 2] + rois[:, 4]) / 2, (rois[:, 3] + rois[:, 5]) / 2], 1)
+
+
+def _assert_instances(out, centres, tol_px):
+    got = _centres(out)
+    for tx, ty in centres:
+        assert np.min(np.hypot(got[:, 0] - tx, got[:, 1] - ty)) <= tol_px, (tx, ty, got)
+
+
+def test_multi_instance_same_class_pair():
+    objects = [(1, 40.0, 60.0, 1.0, 18, 18), (1, 120.0, 60.0, 1.0, 18, 18)]
+    out = run_hough(*make_scene(objects), vote_threshold=5.0, vote_percentage=0.0001)
+    _assert_instances(out, [(40.0, 60.0), (120.0, 60.0)], 3.0)
+
+
+@pytest.mark.parametrize("sep", [13.0, 16.0, 19.0, 22.0])
+def test_multi_instance_close_pair(sep):
+    """Two same-class instances 13-22 px apart both stay local maxima."""
+    objects = [(1, 40.0, 60.0, 1.0, 10, 10), (1, 40.0 + sep, 60.0, 1.0, 10, 10)]
+    out = run_hough(*make_scene(objects), vote_threshold=5.0, vote_percentage=0.0001)
+    _assert_instances(out, [(40.0, 60.0), (40.0 + sep, 60.0)], 3.0)
+
+
+def test_multi_instance_mixed_classes_and_corner():
+    objects = [
+        (1, 30.0, 40.0, 0.9, 16, 16),
+        (1, 110.0, 90.0, 1.4, 20, 16),
+        (3, 8.0, 8.0, 1.1, 14, 14),
+    ]
+    out = run_hough(*make_scene(objects), vote_threshold=4.0, vote_percentage=0.0001)
+    assert np.asarray(out.valid).sum() >= 3
+    _assert_instances(out, [(30.0, 40.0), (110.0, 90.0), (8.0, 8.0)], 4.0)
+
+
+def test_c2f_kernel_lowers_for_cuda(monkeypatch):
+    """The Triton kernels lower, at the serving widths, to Triton IR
+    that passes MLIR verification — from any host. What the GPU's
+    compiler then makes of it shows only on a card."""
+    from jax._src.pallas.triton import pallas_call_registration as registration
+
+    from posecnn_tpu.ops.hough_triton import hough_c2f_max
+
+    lower_module = registration.lowering.lower_jaxpr_to_triton_module
+    verified = []
+
+    def lower_and_verify(*args, **kwargs):
+        result = lower_module(*args, **kwargs)
+        verified.append(result.module.operation.verify())
+        return result
+
+    monkeypatch.setattr(registration.lowering, "lower_jaxpr_to_triton_module", lower_and_verify)
+    fn = jax.jit(functools.partial(hough_c2f_max, cell_stride=1, grid_h=480, grid_w=640))
+    lowered = fn.trace(jnp.zeros((16, 8, 1024)), jnp.zeros((16, 4))).lower(
+        lowering_platforms=("cuda",)
+    )
+    assert "triton" in lowered.as_text()
+    assert verified == [True, True]  # coarse pass and refinement windows

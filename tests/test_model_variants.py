@@ -4,6 +4,7 @@ training loss."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from posecnn_tpu.models import PoseCNN
 
@@ -209,3 +210,47 @@ def test_gt_pose_rois_injection_train_path():
         train=False,
     )
     assert out_eval.hough.rois.shape[0] == 2
+
+
+def _golden_trees():
+    import json
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "posecnn_param_tree.json")
+    with open(path) as f:
+        return json.load(f)
+
+
+_GOLDEN = _golden_trees()
+
+
+@pytest.mark.parametrize("combo", sorted(_GOLDEN["combos"]))
+def test_param_tree_matches_golden(combo):
+    """Parameter paths, shapes and dtypes equal the tree the flax model
+    produced (recorded in tests/data/posecnn_param_tree.json) for every
+    flag combination: snapshots, the vgg16.npy importer, the fc6/fc7
+    sharding rule and `--reinit pose_head` all key on them."""
+    kw = _GOLDEN["combos"][combo]
+    h, w, c = 32, 48, _GOLDEN["num_classes"]
+    model = PoseCNN(
+        num_classes=c, num_units=_GOLDEN["num_units"], fc_dim=_GOLDEN["fc_dim"],
+        hough_num_samples=16, max_objects=2, hough_cell_stride=4, **kw,
+    )
+    img = jnp.zeros((1, h, w, 3))
+    ext = jnp.asarray(np.array([[0, 0, 0], [.3, .3, .3], [.2, .25, .1]], np.float32))
+    meta = np.zeros((1, 48), np.float32)
+    k = np.array([[100.0, 0, w / 2], [0, 100.0, h / 2], [0, 0, 1]], np.float32)
+    meta[0, :9] = k.flatten()
+    meta[0, 9:18] = np.linalg.inv(k).flatten()
+    shapes = jax.eval_shape(
+        lambda rng: model.init(
+            rng, img, ext, jnp.asarray(meta),
+            data_p=img if kw.get("input_format") == "RGBD" else None, train=False,
+        ),
+        jax.random.PRNGKey(0),
+    )
+    rows = sorted(
+        ["/".join(k.key for k in path), list(leaf.shape), str(leaf.dtype)]
+        for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]
+    )
+    assert rows == _GOLDEN["trees"][combo]

@@ -146,7 +146,7 @@ def test_roi_align_linear_ramp():
 
 
 def test_roi_align_mxu_matches_gather():
-    """The MXU (interpolation-matmul) formulation must agree with the
+    """The interpolation-matmul formulation must agree with the
     gather formulation exactly — forward and backward — including
     multi-batch RoIs and out-of-range coordinate clamping."""
     from posecnn_tpu.ops.roi_align import roi_align_mxu

@@ -1,7 +1,7 @@
 """Replay-pool feeder tests (data/synthetic.pooled_minibatch).
 
 The pool exists because scene synthesis on a 2-core host caps the
-sample rate at ~batch-2 while the TPU step is ~free (r5 diagnosis):
+sample rate at ~batch-2 while the device step is ~free (r5 diagnosis):
 device batches of 16+ at the host cost of `fresh` renders per step.
 """
 
